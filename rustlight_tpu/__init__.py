@@ -1,17 +1,17 @@
-"""rustlight_tpu — a TPU-native physically-based light-transport renderer.
+"""rustlight_tpu — a wavefront physically-based light-transport renderer in JAX.
 
 A from-scratch rebuild of the capabilities of the `rustlight` research renderer
-(beltegeuse/rustlight) designed for TPUs: wavefront (bounce-synchronous) Monte
-Carlo integrators over SoA path-state arrays, MXU-friendly ray/triangle
+(beltegeuse/rustlight) for accelerators: wavefront (bounce-synchronous) Monte
+Carlo integrators over SoA path-state arrays, matrix-form ray/triangle
 intersection, branch-free masked BSDF/emitter kernels, counter-based RNG, and
 `jax.sharding`-based multi-chip scaling.
 
 Layout (mirrors the reference's layer map, SURVEY.md §1):
   utils/       math primitives: frames, warps, distributions, solvers, images
-  ops/         compute kernels: ray-triangle intersection, BVH traversal (Pallas)
+  ops/         table gathers shared by the hot paths
   scene/       scene model: meshes, camera, emitters, volumes, loaders
   bsdfs/       material archetypes as masked kernels dispatched by material id
-  accel/       acceleration structures: dense MXU intersector, flattened BVH
+  accel/       acceleration structures: dense intersector, flattened BVH
   samplers/    RNG streams: independent, stratified, primary-sample-space (MCMC)
   integrators/ ao/direct/path/light/vpl/... wavefront integrators + MCMC + gradient
   parallel/    device-mesh sharding of the render loop, film reductions
@@ -20,48 +20,29 @@ Layout (mirrors the reference's layer map, SURVEY.md §1):
 
 __version__ = "0.1.0"
 
-# Persistent XLA compilation cache: render programs are large and this
-# environment's (remote) compiles are slow; caching drops warm-up from minutes
-# to seconds. Opt out with RUSTLIGHT_TPU_NO_COMPILE_CACHE=1.
-import os as _os
 
-def _host_fingerprint() -> str:
-    """Short hash of the host's CPU feature flags. XLA:CPU caches AOT
-    MACHINE CODE compiled for the build host's exact feature set; loading
-    it on a host with different features (heterogeneous fleet) warns
-    'could lead to execution errors such as SIGILL' and can do exactly
-    that. Keying the cache dir by the feature flags makes a different
-    machine start a fresh cache instead of loading foreign code."""
-    import hashlib
-    import platform
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith("flags"):
-                    feats = " ".join(sorted(line.split(":", 1)[1].split()))
-                    break
-            else:
-                feats = platform.processor()
-    except OSError:  # pragma: no cover - non-Linux
-        feats = platform.processor()
-    return hashlib.sha256(feats.encode()).hexdigest()[:10]
+def enable_compile_cache():
+    """Point JAX's persistent compilation cache at one fixed place.
+
+    If JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and nothing
+    is changed here. Otherwise the cache goes to `.jax_cache/` in the
+    checkout that holds this package. The path is part of the cache key, so
+    it must not move between runs. RUSTLIGHT_TPU_NO_COMPILE_CACHE=1 turns
+    the default off (the tests use it). Returns the directory chosen by
+    this call, or None."""
+    import os
+    if (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or os.environ.get("RUSTLIGHT_TPU_NO_COMPILE_CACHE") == "1"):
+        return None
+    import jax
+    path = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
-if not _os.environ.get("RUSTLIGHT_TPU_NO_COMPILE_CACHE"):
-    try:
-        import jax as _jax
-        # separate cache per backend AND host machine type: AOT CPU
-        # executables are machine-specific (see _host_fingerprint)
-        _plat = _os.environ.get("JAX_PLATFORMS", "dev") or "dev"
-        _cache_dir = _os.environ.get(
-            "RUSTLIGHT_TPU_COMPILE_CACHE",
-            _os.path.expanduser(
-                f"~/.jax_cache_{_plat.split(',')[0]}_{_host_fingerprint()}"))
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+enable_compile_cache()
 
 EPSILON = 1e-4  # ray epsilon, mirrors reference src/lib.rs:50-53
 ONE_MINUS_EPSILON = 1.0 - 1e-7

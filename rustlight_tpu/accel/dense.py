@@ -1,26 +1,21 @@
-"""Dense MXU ray-triangle intersection.
+"""Dense ray-triangle intersection: the small-scene tier.
 
 The reference's hot loop is a recursive SAH BVH walk per ray
 (src/accel.rs:243-288) with a scalar Möller triangle test
-(src/geometry.rs:358-410). A pointer-chasing tree walk is the worst possible
-shape for a vector machine, so the TPU-native primitive is *dense*: with
-per-triangle plane/barycentric rows precomputed (Baldwin-Weber, see
-scene/geometry.py), intersecting N rays against T triangles is exactly two
-matmuls
+(src/geometry.rs:358-410). For Cornell-box-class scenes a dense test of
+every ray against every triangle beats any traversal: with per-triangle
+plane/barycentric rows precomputed (Baldwin-Weber, see scene/geometry.py),
+intersecting N rays against T triangles is exactly two matmuls
 
     [N, 4] @ [4, 3T] -> (n.o + d, u_o, v_o) and (n.d, u_d, v_d)
 
 followed by elementwise resolve t = -No/Nd, u = Uo + t*Ud, v = Vo + t*Vd and
-an argmin — all MXU/VPU work with zero divergence. f32 accumulation uses
-Precision.HIGHEST (6-pass bf16 emulation) to keep geometric precision.
+a min-reduction, with no divergence. The products ask for
+Precision.HIGHEST: full f32, never TF32, to keep geometric precision.
 
-For scenes beyond a few thousand triangles this becomes the *leaf kernel* of a
-two-level scheme (cluster BVH -> dense cluster test); for Cornell-box-class
-scenes the dense path alone beats any traversal. Measured v5e scaling is
-linear in the padded triangle count and VPU-resolve-bound: ~0.11 ms per 262k
-rays at 40 padded triangles, ~85 ms at 3928 (insensitive to TRI_CHUNK).
-Triangle chunking bounds the
-[N, 3T] intermediate so HBM working sets stay small.
+Cost is linear in the padded triangle count. Triangle chunking (TRI_CHUNK,
+not yet tuned on the H100) bounds the [N, 3T] intermediate. Scenes above
+geometry.BVH_THRESHOLD triangles take the BVH walk (accel/bvh.py).
 """
 from __future__ import annotations
 
@@ -51,10 +46,8 @@ def _chunk_test(rows_chunk, o4, d4, tnear, tfar):
     rows_chunk [c, 3, 4]; o4/d4 [n, 4]. Returns (t [n, c], valid [n, c], ...).
 
     Layout note: the matmul output is kept as [n, 3c] with *contiguous blocks*
-    N | U | V of c columns each. Reshaping to [n, c, 3] instead would put 3 in
-    the minor dimension — TPU pads the minor dim to 128 lanes, blowing the
-    physical footprint up ~40x and forcing relayout copies of the biggest
-    intermediate in the renderer.
+    N | U | V of c columns each, so no reshape puts the 3 in the minor
+    dimension of the biggest intermediate in the renderer.
     """
     c = rows_chunk.shape[0]
     p = rows_chunk.transpose(1, 0, 2).reshape(3 * c, 4).T   # [4, N-blk|U-blk|V-blk]
@@ -84,24 +77,12 @@ def _intersect_impl(inter_rows, o, d, tnear, tfar, any_hit: bool):
 
     n_chunks = max(1, (t_pad + TRI_CHUNK - 1) // TRI_CHUNK)
 
-    # Pallas fast path: fused matmul+resolve keeps the [n, 3T] intermediates
-    # in VMEM (ops/pallas_trace.py); XLA fallback below materializes them.
-    from ..ops.pallas_trace import pallas_supported, pallas_trace
-    if pallas_supported(3 * t_pad):
-        rows_t = inter_rows.transpose(1, 0, 2).reshape(3 * t_pad, 4).T
-        if any_hit:
-            return pallas_trace(rows_t, o4, d4, tnear, tfar, any_hit=True)
-        t, idx, u, v = pallas_trace(rows_t, o4, d4, tnear, tfar)
-        hit = jnp.isfinite(t)
-        return RayHit(t=t, tri=jnp.where(hit, idx, -1), u=u, v=v, hit=hit)
-
     if n_chunks == 1:
         t, u, v, valid = _chunk_test(inter_rows, o4, d4, tnear, tfar)
         if any_hit:
             return jnp.any(valid, axis=1)
-        # reduction-based winner selection: argmin/take_along_axis lower to
-        # serial row gathers on TPU (~6 ms at 262k rays); two min-reductions
-        # plus masked sums stay pure VPU work
+        # reduction-based winner selection: two min-reductions plus masked
+        # sums, the lowest index winning exact ties
         t_masked = jnp.where(valid, t, jnp.inf)
         best_t = jnp.min(t_masked, axis=1)
         hit = jnp.isfinite(best_t)
@@ -162,40 +143,24 @@ def _intersect_impl(inter_rows, o, d, tnear, tfar, any_hit: bool):
 
 
 def intersect_rays(geom, o, d, tnear=None, tfar=None) -> RayHit:
-    """Closest-hit for a ray wavefront. o, d [n, 3]. Large scenes route to
-    the two-level clustered intersector (accel/clustered.py)."""
+    """Closest-hit for a ray wavefront. o, d [n, 3]. Scenes that carry BVH
+    tables (above geometry.BVH_THRESHOLD) route to the BVH walk."""
     n = o.shape[0]
     if tnear is None:
         tnear = jnp.full(n, EPSILON, jnp.float32)
     if tfar is None:
         tfar = jnp.full(n, jnp.inf, jnp.float32)
-    if getattr(geom, "walk", None) is not None:
-        from .pallas_walk import _walk_impl, walk_supported
-        if walk_supported(geom.walk):
-            from .pair_walk import pair_walk_enabled, _pairs_impl
-            if pair_walk_enabled(geom.walk):
-                return _pairs_impl(geom.walk, o, d, tnear, tfar, False)
-            return _walk_impl(geom.walk, o, d, tnear, tfar, False)
-    if getattr(geom, "clusters", None) is not None:
-        from .clustered import _intersect_clustered_impl
-        return _intersect_clustered_impl(geom.clusters, o, d, tnear, tfar,
-                                         False)
+    if getattr(geom, "bvh", None) is not None:
+        from .bvh import intersect_bvh
+        return intersect_bvh(geom.bvh, o, d, tnear, tfar)
     return _intersect_impl(geom.inter_rows, o, d, tnear, tfar, False)
 
 
 def occluded_rays(geom, o, d, tnear, tfar):
     """Any-hit (shadow ray) test; True = blocked."""
-    if getattr(geom, "walk", None) is not None:
-        from .pallas_walk import _walk_impl, walk_supported
-        if walk_supported(geom.walk):
-            from .pair_walk import pair_walk_enabled, _pairs_impl
-            if pair_walk_enabled(geom.walk):
-                return _pairs_impl(geom.walk, o, d, tnear, tfar, True)
-            return _walk_impl(geom.walk, o, d, tnear, tfar, True)
-    if getattr(geom, "clusters", None) is not None:
-        from .clustered import _intersect_clustered_impl
-        return _intersect_clustered_impl(geom.clusters, o, d, tnear, tfar,
-                                         True)
+    if getattr(geom, "bvh", None) is not None:
+        from .bvh import occluded_bvh
+        return occluded_bvh(geom.bvh, o, d, tnear, tfar)
     return _intersect_impl(geom.inter_rows, o, d, tnear, tfar, True)
 
 
@@ -206,9 +171,9 @@ def visible(geom, p0, p1, mask=None):
 
     mask [n] bool (optional): lanes where the caller will NOT consume the
     result (dead lanes, delta BSDFs, invalid light samples). They get
-    tfar = 0 — an inert ray that cannot hit anything, so on the Pallas walk
-    they stop inflating their tile's cluster union. Masked lanes return
-    True (unoccluded); callers must gate on their own mask."""
+    tfar = 0 — an inert ray that cannot hit anything (the BVH walk retires
+    it at the root). Masked lanes return True (unoccluded); callers must
+    gate on their own mask."""
     delta = p1 - p0
     dist = jnp.linalg.norm(delta, axis=-1)
     d = delta / jnp.maximum(dist, 1e-20)[:, None]

@@ -2,7 +2,7 @@
 //
 // The reference's acceleration layer is native (Rust BVHAccel with a full SAH
 // sweep, src/accel.rs:79-344, plus the optional Embree C++ backend). This is
-// the TPU framework's native equivalent: the host-side build is C++ (called
+// this framework's native equivalent: the host-side build is C++ (called
 // via ctypes), the traversal runs on-device (accel/bvh.py).
 //
 // Output layout (flattened, depth-first preorder, stackless skip links):

@@ -6,7 +6,7 @@ away from the surface toward the previous vertex — the reference's convention
 `sample` returns weight = f·cos/pdf, matching the reference's SampledDirection.
 
 Every archetype evaluates for every lane and results blend by `kind` masks —
-the TPU replacement for trait-object dispatch. Guarded divisions keep masked
+the wavefront replacement for trait-object dispatch. Guarded divisions keep masked
 lanes NaN-free.
 
 Known deviation from the reference: rough-metal `sample` reports the
@@ -53,8 +53,7 @@ def _safe_div(a, b, eps=1e-20):
 def _gather(table: MaterialTable, idx):
     """Per-lane material rows (textures excluded — they stay scene-level).
 
-    One one-hot matmul per column set (see ops/gather.py): TPU gathers from
-    small tables are serial, one-hot selection rides the MXU instead."""
+    One one-hot matmul per column set (see ops/gather.py)."""
     taker = make_taker(idx, table.kind.shape[0])
 
     def take(x):

@@ -1,7 +1,7 @@
 """Isotropic microfacet distributions (Beckmann + GGX), vectorized.
 
 Reference behavior: src/bsdfs/distribution.rs:25-145. `dist_ggx` is a per-lane
-bool so both models evaluate branch-free and blend by mask — the TPU version of
+bool so both models evaluate branch-free and blend by mask — the wavefront version of
 the enum dispatch.
 """
 from __future__ import annotations

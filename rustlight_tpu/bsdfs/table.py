@@ -1,7 +1,7 @@
 """Material table: all scene BSDFs as one dense SoA, dispatched by kind.
 
 The reference models materials as `Box<dyn BSDF>` trait objects
-(src/bsdfs/mod.rs:163-199). On TPU, virtual dispatch becomes a *table*: every
+(src/bsdfs/mod.rs:163-199). On the wavefront, virtual dispatch becomes a *table*: every
 material archetype's parameters live in fixed columns and every lane evaluates
 all (cheap) archetypes branch-free, blending by `kind` masks.
 
@@ -22,7 +22,8 @@ from typing import Any, List, Optional
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from ..utils import pytree
 
 KIND_DIFFUSE = 0
 KIND_PHONG = 1
@@ -67,7 +68,7 @@ class MaterialDesc:
     blend_w: float = 1.0
 
 
-@struct.dataclass
+@pytree.dataclass
 class MaterialTable:
     kind: Any
     kd: Any

@@ -9,7 +9,7 @@ direction, and a final 0.25 primal scale (explicit.rs:127-199).
 
 On the wavefront, "replaying the random sequence" is free: the PSS vector is
 an explicit array (ArrayStream), so the offset paths simply reuse it — the
-natural TPU form of the shift. `min_survival` implements the adaptive path
+natural wavefront form of the shift. `min_survival` implements the adaptive path
 survival (explicit.rs:246-257) as a weighted evaluation instead of a skip.
 """
 from __future__ import annotations
@@ -46,7 +46,7 @@ def _lane_constraint(mesh):
     1-px apron, gradient/mod.rs:58-135): lanes and (h, w, 3) films carry a
     `with_sharding_constraint` on the leading axis, XLA partitions the
     per-lane transport and lowers the 1-pixel film shifts (`_shift2d`) to
-    collective-permute halo exchanges over ICI — the same roll-based
+    collective-permute halo exchanges — the same roll-based
     pattern SMCMC's replica exchange uses."""
     if mesh is None:
         return lambda x: x
@@ -107,7 +107,7 @@ class IntegratorGradientPath:
         py = pix[:, 1]
         pid = py * w + px
 
-        # scene closed over: compile-time constants (2.25x on v5e);
+        # scene closed over: compile-time constants;
         # the RNG base is an argument so avg-mode passes reuse the executable
         from ..common import _BLOCK_CACHE, _cache_put
         ck = (id(scene), id(self), w, h, "gdpt-replay",

@@ -18,7 +18,7 @@ between base and offset follows the reference's weight algebra verbatim,
 including the 1e-4-regularized dead-shift denominator (path.rs:316-318) and
 the no-light-MIS rule for half-vector shifts (path.rs:832-840).
 
-TPU-native form: one wavefront lane per base pixel, the four offset states
+Wavefront form: one lane per base pixel, the four offset states
 carried as SoA pytrees through a `lax.while_loop`; every per-state branch is
 evaluated for all lanes and mask-selected (the states are data, not control
 flow). The `very_direct` (camera->light) buffer bypasses reconstruction as in

@@ -3,7 +3,7 @@
 Reference: src/integrators/gradient/recons.rs — Jacobi iterations combining
 the primal estimate with forward-difference gradients:
   I[p] <- ( I[p] + sum_q (I[q] +- g[q,p]) ) / w
-On TPU the per-pixel loops become whole-image stencils (jnp.roll + edge
+On the device the per-pixel loops become whole-image stencils (jnp.roll + edge
 masks) inside a fori_loop — P8 in SURVEY.md §2.10.
 """
 from __future__ import annotations

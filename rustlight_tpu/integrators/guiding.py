@@ -4,7 +4,7 @@ A world-space voxel grid stores per-voxel directional radiance histograms
 (equal-solid-angle bins); path vertices deposit their incident-radiance
 estimates, and the directional bounce samples a defensive one-sample-MIS
 mixture of the BSDF and the learned distribution. The wavefront makes both
-halves cheap TPU table ops: deposits are one scatter-add per bounce, guided
+halves cheap table ops: deposits are one scatter-add per bounce, guided
 sampling is a 128-lane categorical draw per lane (the histogram row rides a
 gather), and the mixture pdf keeps the estimator unbiased for ANY table
 contents because every bin keeps a uniform prior mass.
@@ -20,12 +20,13 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from ..utils import pytree
 
 _PI = np.pi
 N_THETA = 8          # cos-theta slabs (equal solid angle)
 N_PHI = 16
-N_BINS = N_THETA * N_PHI          # 128 = one TPU lane row
+N_BINS = N_THETA * N_PHI          # 128 bins
 # Per-bin prior mass: only needs to make cold-start rows samplable — the
 # DEFENSIVE MIXTURE is what bounds weights (pdf_mix >= (1-alpha)*pdf_bsdf,
 # so a tiny guide pdf can at most double the BSDF-only weight). A large
@@ -33,9 +34,9 @@ N_BINS = N_THETA * N_PHI          # 128 = one TPU lane row
 UNIFORM_PRIOR = 0.01
 
 
-@struct.dataclass
+@pytree.dataclass
 class GuideGrid:
-    g: int = struct.field(pytree_node=False)          # voxels per axis
+    g: int = pytree.field(static=True)          # voxels per axis
     lo: Any = None                                    # [3] world bounds
     inv_extent: Any = None                            # [3] 1/(hi-lo)
     table: Any = None                                 # [g^3, N_BINS] weights
@@ -134,7 +135,7 @@ def render_guided(scene, integrator, spp: int, seed: int = 0, g: int = 16,
     `grid` continues training from an existing table (pass persistence —
     see IntegratorGuidedPath); `return_grid` also returns the trained grid.
     `mesh` shards the pixel wavefront over the device mesh ('d' axis) with
-    the grid replicated: per-device deposits psum over ICI so every device
+    the grid replicated: per-device deposits psum so every device
     trains the SAME table (padding lanes re-deposit one pixel's estimate —
     training signal, not a film estimate, so no bias). The compiled pass is
     cached per (scene, integrator, mesh), so -a passes never retrace."""

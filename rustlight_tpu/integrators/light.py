@@ -5,7 +5,7 @@ Reference: src/integrators/explicit/light.rs. Light paths start on an emitter
 every vertex connect to the pinhole camera: splat
 flux * W_e * f(wi, w_cam; Radiance) * shading-normal-correction into the film
 (emitter vertices splat flux * W_e * cos/pi). The film is scatter-added — the
-TPU version of the reference's mutex-merged per-job buffers (P2 in SURVEY.md
+wavefront version of the reference's mutex-merged per-job buffers (P2 in SURVEY.md
 §2.10) — and scaled by W*H/total_paths.
 
 Faithful quirk: bounces use Transport::Importance while splat connections use

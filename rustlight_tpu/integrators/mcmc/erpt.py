@@ -5,7 +5,7 @@ samples; each contributive sample spawns a Poisson-ish number of small-step
 MCMC chains (floor(mean + u)) that redistribute its energy under the
 equal-deposit rule w0 = b / (chains_per_pixel * chain_samples).
 
-TPU adaptation (P5 in SURVEY.md §2.10): chain spawning is data-dependent, so
+Wavefront adaptation (P5 in SURVEY.md §2.10): chain spawning is data-dependent, so
 the wavefront uses fixed-budget *weighted* spawning: each exploration lane
 runs at most one chain, spawned with probability p = min(1, mean_chains) and
 deposit weight scaled by mean_chains / p — identical expectation, fully

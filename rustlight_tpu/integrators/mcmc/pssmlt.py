@@ -4,7 +4,7 @@ Reference: src/integrators/mcmc/pssmlt.rs + mcmc/mod.rs:67-103. The target
 function is any pixel integrator evaluated at a PSS vector: the first two
 dims choose the pixel, the rest drive the path sampling.
 
-TPU redesign (P3 in SURVEY.md §2.10): instead of `total/100k` rayon chains
+Wavefront redesign (P3 in SURVEY.md §2.10): instead of `total/100k` rayon chains
 with lazily-replayed RNG, thousands of chains advance in lockstep, one dense
 PSS array per chain. Seeding keeps the explicit seed *arrays* (no RNG-replay
 reconstruction, which the reference itself flags as fragile, pssmlt.rs:68-74).
@@ -40,8 +40,8 @@ class IntegratorPSSMLT:
 
     averaging = True
 
-    # nb_chains default fills the TPU: equal-time cbox error drops ~2.1x
-    # going 4096 -> 65536 chains (shorter chains, full-width wavefronts).
+    # nb_chains default fills the device with full-width wavefronts
+    # (shorter chains); not yet tuned on the H100.
     # The reference sizes chains as total/100k on CPU threads
     # (pssmlt.rs:34-38); lane count is the analogous resource here.
     def __init__(self, integrator, large_prob: float = 0.3,
@@ -74,7 +74,7 @@ class IntegratorPSSMLT:
         the chain population is split evenly over its devices — the reference
         runs `total/100k` chains as independent rayon tasks
         (pssmlt.rs:34-108); here each device evolves its chain shard into a
-        private film and one psum merges the films over ICI (P3+P6)."""
+        private film and one psum merges the films (P3+P6)."""
         cam = scene.camera
         w, h = cam.width, cam.height
         c = self.nb_chains
@@ -201,7 +201,7 @@ class IntegratorPSSMLT:
 
         # chain-parallel over the mesh: each device evolves its chain shard
         # into a private film; one psum merges (reference: independent rayon
-        # chains + mutex film merge, pssmlt.rs:34-108 — P3/P6 on ICI)
+        # chains + mutex film merge, pssmlt.rs:34-108 — P3/P6 as one psum)
         from jax import shard_map
         from jax.sharding import PartitionSpec as P
 

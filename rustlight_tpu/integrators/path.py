@@ -61,7 +61,6 @@ class _PathState(NamedTuple):
     prev_pdf: Any     # [n] solid-angle pdf of the directional strategy
     prev_delta: Any   # [n] previous bounce was a delta lobe (or sensor)
     prev_nee: Any     # [n] NEE was *possible* at the previous vertex
-    prev_occ: Any     # [n] this lane's most recent NEE shadow ray was blocked
 
 
 class _PersistentState(NamedTuple):
@@ -84,7 +83,6 @@ class _PersistentState(NamedTuple):
     prev_pdf: Any
     prev_delta: Any
     prev_nee: Any
-    prev_occ: Any
 
 
 class IntegratorPathTracing(Integrator):
@@ -93,48 +91,15 @@ class IntegratorPathTracing(Integrator):
                  rr_depth: Optional[int] = 0,
                  strategy: str = STRATEGY_ALL,
                  single_scattering: bool = False,
-                 nee_rr="default",
                  hard_cap: int = 64):
         self.min_depth = min_depth or 0
         self.max_depth = max_depth
         self.rr_depth = rr_depth
         self.strategy = strategy
         self.single_scattering = single_scattering
-        # Visibility-history NEE Russian roulette (VERDICT r4 item 2):
-        # 87% of grid122k shadow rays are OCCLUDED at full potential, so
-        # potential-proportional RR has no purchase — but occlusion is
-        # strongly autocorrelated along a path. A lane whose previous NEE
-        # shadow ray was blocked tests its next one with probability
-        # `nee_rr` (kept contributions scale 1/p: unbiased — p depends
-        # only on already-observed visibility, never the current sample).
-        # The origin-morton sort key herds same-region lanes into the same
-        # walk tiles, so the skipped (inert, tfar=0) rays vacate whole
-        # tiles rather than scattering across them. None = off.
-        if nee_rr == "default":
-            import os as _os
-            env = _os.environ.get("RUSTLIGHT_TPU_NEE_RR", "auto")
-            if env in ("", "0", "off"):
-                nee_rr = None
-            elif env == "auto":
-                # tier-aware: the RR only SAVES time on the tile-walk
-                # accel (skipped rays vacate tiles); the dense-MXU tier
-                # traces full wavefronts regardless, so small scenes
-                # would pay the variance for zero wall win — resolved
-                # per scene in _nee_rr_for
-                nee_rr = "auto"
-            else:
-                nee_rr = float(env)
-        self.nee_rr = nee_rr
         # safety bound for the while_loop when max_depth is None (RR terminates
         # lanes geometrically; 64 bounces leaves ~1e-? of energy for albedo .95)
         self.hard_cap = hard_cap if max_depth is None else min(hard_cap, max_depth)
-
-    def _nee_rr_for(self, scene):
-        """Effective NEE-RR survival prob for this scene (None = off)."""
-        if self.nee_rr == "auto":
-            return 0.25 if getattr(scene.geom, "walk", None) is not None \
-                else None
-        return self.nee_rr
 
     def _naive_bounce(self, scene, hit, smooth, u_bsdf, bs):
         """STRATEGY_NAIVE: cosine-hemisphere sampling on the wi side, weight
@@ -168,7 +133,6 @@ class IntegratorPathTracing(Integrator):
         u_pix, stream = stream_next2d(stream, (n,))
         o, d = generate_rays(scene.camera, pix.astype(jnp.float32) + u_pix)
 
-        nee_rr = self._nee_rr_for(scene)
         use_nee = self.strategy in (STRATEGY_ALL, STRATEGY_EMITTER)
         mis_on = self.strategy == STRATEGY_ALL
         keep_bsdf_hits = self.strategy in (STRATEGY_ALL, STRATEGY_BSDF,
@@ -188,7 +152,6 @@ class IntegratorPathTracing(Integrator):
             prev_pdf=jnp.ones(n, jnp.float32),
             prev_delta=jnp.ones(n, bool),   # sensor: single strategy, weight 1
             prev_nee=jnp.zeros(n, bool),
-            prev_occ=jnp.zeros(n, bool),
         )
 
         def cond(sd_):
@@ -201,8 +164,7 @@ class IntegratorPathTracing(Integrator):
             s, dep = sd_
             k = s.k
             stream = s.stream
-            # dead lanes trace inert (tfar=0) rays: they cannot hit, and on
-            # the walk kernel they stop inflating the tile's cluster union
+            # dead lanes trace inert (tfar=0) rays: they cannot hit
             rh = intersect_rays(scene.geom, s.o, s.d,
                                 tfar=jnp.where(s.alive, jnp.inf, 0.0))
             hit = fill_hit(scene, s.o, s.d, rh)
@@ -324,26 +286,16 @@ class IntegratorPathTracing(Integrator):
                     offset_ray_origin(hit.p, hit.n_g, ls.d))
                 pre_ok = (can_expand & (scattered | (lane_surface & (~smooth)))
                           & ls.valid & ((k + 1) >= self.min_depth))
-                if nee_rr is not None:
-                    u_nrr, stream = stream_next(stream, (n,))
-                    p_keep = jnp.where(s.prev_occ, nee_rr, 1.0)
-                    pre_ok = pre_ok & (u_nrr < p_keep)
-                    nee_scale = (1.0 / p_keep)[:, None]
-                else:
-                    nee_scale = 1.0
                 # lanes that cannot contribute shoot an inert (tfar=0)
-                # shadow ray — on the walk kernel they stop inflating their
-                # tile's cluster union (bit-identical: nee_ok gates on pre_ok)
+                # shadow ray (bit-identical: nee_ok gates on pre_ok)
                 vis = visible(scene.geom, p_shadow, ls.p, mask=pre_ok)
                 w_nee = jnp.where(
                     ls.is_delta | (~jnp.asarray(mis_on)),
                     1.0, mis_balance(ls.pdf, pdf_other))
                 nee_ok = pre_ok & vis
-                prev_occ = jnp.where(pre_ok, ~vis, s.prev_occ)
                 radiance = radiance + jnp.where(
                     nee_ok[:, None],
-                    thr * f * tr_sh * ls.weight * w_nee[:, None]
-                    * nee_scale, 0.0)
+                    thr * f * tr_sh * ls.weight * w_nee[:, None], 0.0)
                 if guide is not None and collect:
                     # ls.weight = Le*G/pdf: the incident-radiance estimate
                     # along ls.d (f excluded — the grid learns L_i, not the
@@ -433,8 +385,6 @@ class IntegratorPathTracing(Integrator):
                               offset_ray_origin(hit.p, hit.n_g, wo_world))
 
             nee_possible = jnp.asarray(use_nee) & (scattered | (~smooth))
-            if not use_nee:
-                prev_occ = s.prev_occ
             return _PathState(
                 k=k + 1, stream=stream,
                 o=jnp.where(alive[:, None], o_new, s.o),
@@ -445,7 +395,6 @@ class IntegratorPathTracing(Integrator):
                 prev_pdf=jnp.where(alive, pdf_dir, s.prev_pdf),
                 prev_delta=jnp.where(alive, is_delta, s.prev_delta),
                 prev_nee=jnp.where(alive, nee_possible, s.prev_nee),
-                prev_occ=prev_occ,
             ), dep
 
         final, dep = lax.while_loop(cond, body, (state, dep0))
@@ -463,7 +412,6 @@ class IntegratorPathTracing(Integrator):
         SUM over spp samples, [n, 3]."""
         n = pix.shape[0]
         pixf = pix.astype(jnp.float32)
-        nee_rr = self._nee_rr_for(scene)
         use_nee = self.strategy in (STRATEGY_ALL, STRATEGY_EMITTER)
         mis_on = self.strategy == STRATEGY_ALL
         keep_bsdf_hits = self.strategy in (STRATEGY_ALL, STRATEGY_BSDF,
@@ -479,7 +427,6 @@ class IntegratorPathTracing(Integrator):
             depth=jnp.zeros(n, jnp.int32),
             prev_pdf=jnp.ones(n, jnp.float32),
             prev_delta=jnp.ones(n, bool), prev_nee=jnp.zeros(n, bool),
-            prev_occ=jnp.zeros(n, bool),
         )
         it_cap = spp * self.hard_cap + 4
 
@@ -501,7 +448,6 @@ class IntegratorPathTracing(Integrator):
             prev_pdf = jnp.where(need, 1.0, s.prev_pdf)
             prev_delta = jnp.where(need, True, s.prev_delta)
             prev_nee = jnp.where(need, False, s.prev_nee)
-            prev_occ = jnp.where(need, False, s.prev_occ)
             alive = s.alive | need
 
             rh = intersect_rays(scene.geom, o, d,
@@ -596,13 +542,6 @@ class IntegratorPathTracing(Integrator):
                     offset_ray_origin(hit.p, hit.n_g, ls.d))
                 pre_ok = (can_expand & (scattered | (lane_surface & (~smooth)))
                           & ls.valid & ((depth + 1) >= self.min_depth))
-                if nee_rr is not None:
-                    u_nrr, stream = stream_next(stream, (n,))
-                    p_keep = jnp.where(prev_occ, nee_rr, 1.0)
-                    pre_ok = pre_ok & (u_nrr < p_keep)
-                    nee_scale = (1.0 / p_keep)[:, None]
-                else:
-                    nee_scale = 1.0
                 # inert shadow rays for non-contributing lanes (see
                 # compute_pixel)
                 vis = visible(scene.geom, p_shadow, ls.p, mask=pre_ok)
@@ -610,11 +549,9 @@ class IntegratorPathTracing(Integrator):
                     ls.is_delta | (~jnp.asarray(mis_on)),
                     1.0, mis_balance(ls.pdf, pdf_other))
                 nee_ok = pre_ok & vis
-                prev_occ = jnp.where(pre_ok, ~vis, prev_occ)
                 rad_path = rad_path + jnp.where(
                     nee_ok[:, None],
-                    thr * f * tr_sh * ls.weight * w_nee[:, None]
-                    * nee_scale, 0.0)
+                    thr * f * tr_sh * ls.weight * w_nee[:, None], 0.0)
 
             u_bsdf, stream = stream_next2d(stream, (n,))
             bs = bsdf_sample(scene.materials, hit.mat, hit.uv, hit.wi, u_bsdf,
@@ -669,7 +606,6 @@ class IntegratorPathTracing(Integrator):
                 prev_pdf=jnp.where(alive_new, pdf_dir, prev_pdf),
                 prev_delta=jnp.where(alive_new, is_delta, prev_delta),
                 prev_nee=jnp.where(alive_new, nee_possible, prev_nee),
-                prev_occ=prev_occ,
             )
 
         final = lax.while_loop(cond, body, state)

@@ -7,7 +7,7 @@ src/integrators/explicit/point_normal.rs:391-640,757-940 (TaylorSampling /
 PointNormalSampling / PointNormalTaylorSampling: clamp-angle heuristics,
 Newton CDF inversion, and the analytic a*cos+b*sin "point-normal" factor).
 
-TPU-native differences: every sampler here is a set of pure per-lane
+Wavefront differences: every sampler here is a set of pure per-lane
 vectorized functions — setup products are [N]-shaped arrays, the Newton
 inversion is a fixed-iteration bisection-safeguarded loop (lax.fori_loop)
 instead of the reference's early-exit `newton_raphson_iterate`, and invalid

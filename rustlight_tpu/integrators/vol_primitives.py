@@ -10,7 +10,7 @@ phase 2 gathers primitives along camera rays:
   Planes — 0D kernel, plane-ray jacobian: Tr(t)·sigma_s^2·phase·1/|d0.(d1 x -d)|
   VRL    — naive MC on virtual ray lights (point-point sample, vol_primitives.rs:201-254)
 
-TPU redesign: the reference's BVH `gather()` becomes a *chunked dense sweep* —
+Wavefront redesign: the reference's BVH `gather()` becomes a *chunked dense sweep* —
 every camera ray tests every primitive chunk (scan over chunks), which is
 branch-free vector work instead of divergent tree walks. Short-beam semantics
 (beam length = sampled free-flight distance, transmittance along the beam

@@ -4,11 +4,11 @@ Reference: src/integrators/explicit/vpl.rs — phase 1 shoots light paths and
 deposits Emitter/Surface(/Volume) VPLs; phase 2 gathers every VPL at every
 shading point.
 
-TPU redesign (P7 in SURVEY.md §2.10): the shoot pass is a light-path
+Wavefront redesign (P7 in SURVEY.md §2.10): the shoot pass is a light-path
 wavefront depositing VPLs into fixed [paths, bounces] slots; the gather pass
 is a *dense pairwise* [pixels x VPL-chunk] evaluation — visibility rays and
 BSDF products over the full cartesian product, scanned over VPL chunks.
-That shape (every pixel against every light) is exactly what the MXU wants.
+That shape (every pixel against every light) is one dense batched product.
 
 `clamping_factor` is declared but never applied in the reference
 (vpl.rs:20); here it optionally clamps the 1/dist^2 geometry term

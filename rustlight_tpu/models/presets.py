@@ -71,11 +71,9 @@ def door_box(width=40, height=30) -> Scene:
 def sphere_grid_mesh(n_tris: int, n_theta: int = 10, spacing: float = 3.0,
                      material: int = 0):
     """Raw cubic-grid-of-UV-spheres geometry: one TriMesh of ~n_tris
-    triangles plus the grid side count. The ONE generator behind the
-    sphere_grid benchmark scene AND the perf tools (tools/perf/k_sweep.py,
-    tools/perf/roofline.py use n_theta=18 / 110k so their recorded numbers
-    stay comparable across rounds); a single source keeps the scenes the
-    docs treat as identical actually identical.
+    triangles plus the grid side count. The one generator behind the
+    sphere-grid scenes of the benchmark and chip_smoke.py, so scenes the
+    docs treat as identical are identical.
     Returns (mesh, gs) with the grid spanning [0, gs*spacing]^3."""
     import numpy as np
     from ..scene.geometry import TriMesh, make_sphere
@@ -97,25 +95,40 @@ def sphere_grid_mesh(n_tris: int, n_theta: int = 10, spacing: float = 3.0,
     return mesh, gs
 
 
-def sphere_grid(n_tris=122_000, width=256, height=256) -> Scene:
+def sphere_grid(n_tris=122_000, width=256, height=256,
+                n_theta=10) -> Scene:
     """Large-scene benchmark: a cubic grid of UV spheres (~n_tris triangles
-    total) under one overhead area light, camera outside looking in. The
-    committed 122k-tri configuration exercises the production Pallas
-    tile-walk intersector (every e2e bounce/shadow wavefront is divergent)
-    — the scene behind BENCH's second metric and tools/perf/."""
+    total, 2 n_theta (n_theta - 1) per sphere) under one overhead area
+    light, camera outside looking in. The 122k-tri configuration exercises
+    the BVH tier on divergent bounce and shadow wavefronts."""
     from .. import bsdfs as _b
     import numpy as np
     from ..scene import make_quad
 
     sc = Scene()
     m = sc.add_material(_b.diffuse((0.6, 0.55, 0.5)))
-    mesh, gs = sphere_grid_mesh(n_tris, n_theta=10, material=m)
+    mesh, gs = sphere_grid_mesh(n_tris, n_theta=n_theta, material=m)
     sc.add_mesh(mesh)
     lm = sc.add_material(_b.diffuse((0, 0, 0)))
     ext = gs * 3.0
     sc.add_mesh(make_quad((0, ext + 4, 0), (ext, ext + 4, 0),
                           (ext, ext + 4, ext), (0, ext + 4, ext),
                           material=lm, emission=(40, 40, 40)))
+    sc.camera = make_camera(width, height, fov=55.0,
+                            to_world=look_at((ext / 2, ext / 2, -0.35 * ext),
+                                             (ext / 2, ext / 2, ext / 2),
+                                             (0, 1, 0)))
+    return sc
+
+
+def sphere_grid_ao(n_tris=4_200_000, width=256, height=256) -> Scene:
+    """The AO frontier scene: a grid of 18x18 UV spheres (4.2M requested ->
+    4.9M triangles by default) with no light, for the AO integrator."""
+    sc = Scene()
+    m = sc.add_material(diffuse((0.65, 0.6, 0.55)))
+    mesh, gs = sphere_grid_mesh(n_tris, n_theta=18, material=m)
+    sc.add_mesh(mesh)
+    ext = gs * 3.0
     sc.camera = make_camera(width, height, fov=55.0,
                             to_world=look_at((ext / 2, ext / 2, -0.35 * ext),
                                              (ext / 2, ext / 2, ext / 2),

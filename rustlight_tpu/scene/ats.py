@@ -5,7 +5,7 @@ axis cone theta_o/theta_e, flux phi), DirectionCone unions, SAOH bucket build
 (12 buckets, solid-angle measure momega), stochastic importance-driven
 traversal for sampling and a parent-walk for pdfs. Enabled by `-x ats`.
 
-TPU split: the SAOH build runs on host (numpy, recursive — same algorithm as
+Host/device split: the SAOH build runs on host (numpy, recursive — same algorithm as
 the reference); sampling/pdf run on device as while_loops over flattened node
 tables with one-hot gathers. The variance-based splitting traversal
 (sample_split, emitter.rs:1401-1487) runs as a bounded explicit-stack
@@ -20,8 +20,8 @@ from typing import Any, NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from ..utils import pytree
 from ..ops.gather import table_take
 from ..utils.vec import normalize
 
@@ -88,10 +88,10 @@ class _LB:
                              - 2 * to * np.sin(to) + np.cos(to)))
 
 
-@struct.dataclass
+@pytree.dataclass
 class AtsTables:
-    n_nodes: int = struct.field(pytree_node=False)
-    root: int = struct.field(pytree_node=False)
+    n_nodes: int = pytree.field(static=True)
+    root: int = pytree.field(static=True)
     left: Any       # [m] int32 (-1 leaf)
     right: Any      # [m]
     parent: Any     # [m]
@@ -480,7 +480,7 @@ def ats_sample_split(ats: AtsTables, o, d, tmax, u, u_stack,
     pick one child by ray importance. Returns fixed-size slots
     (tri [n,K], pdf_sel [n,K], valid [n,K]).
 
-    TPU form: the reference's recursion + Vec become a bounded explicit
+    Wavefront form: the reference's recursion + Vec become a bounded explicit
     stack ([n, D] node/pdf/r arrays) inside one lax.while_loop; extra
     branch randoms come from the pre-drawn `u_stack` [n, D]. Selection is
     capped at K = max_lights slots (the reference is unbounded; with the

@@ -18,8 +18,8 @@ from typing import Any, List, NamedTuple, Optional
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from ..utils import pytree
 from ..utils.distribution import (
     Distribution1D, build_distribution_1d, build_distribution_1d_np,
     sample_discrete_1d, pdf_discrete_1d,
@@ -39,14 +39,14 @@ ATOM_PN = 4     # point+normal cosine emitter (emitter.rs:252-298)
 _PI = np.pi
 
 
-@struct.dataclass
+@pytree.dataclass
 class EmitterTables:
-    n_atoms: int = struct.field(pytree_node=False)
-    has_env: bool = struct.field(pytree_node=False)
-    env_textured: bool = struct.field(pytree_node=False)
+    n_atoms: int = pytree.field(static=True)
+    has_env: bool = pytree.field(static=True)
+    env_textured: bool = pytree.field(static=True)
     # any triangle uses uv-dependent emission (HSV/texture,
     # reference geometry.rs:99-104) — static so constant scenes skip the math
-    has_em_uv: bool = struct.field(pytree_node=False)
+    has_em_uv: bool = pytree.field(static=True)
     atom_cdf: Any            # Distribution1D over atoms
     atom_kind: Any           # [a] int32
     atom_ref: Any            # [a] int32 (tri global id / point idx / dir idx)

@@ -2,9 +2,9 @@
 
 Host side: `TriMesh` — indexed triangles + material/emission, the analogue of
 the reference `Mesh` (src/geometry.rs:107-458). Device side: `GeometryTables` —
-one flat SoA over *all* scene triangles, padded to a multiple of 128 lanes,
+one flat SoA over *all* scene triangles, padded to a multiple of TRI_PAD,
 with precomputed plane/barycentric rows so that ray-triangle intersection
-becomes two `[N,4] x [4,3T]` matmuls on the MXU (see accel/dense.py). There is
+becomes two `[N,4] x [4,3T]` matrix products (see accel/dense.py). There is
 no per-mesh object on device; meshes survive as per-triangle id columns.
 """
 from __future__ import annotations
@@ -14,20 +14,19 @@ from typing import Any, List, Optional
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
-# Triangle-count padding quantum. Counterintuitively, SMALLER is much faster
-# on v5e for small scenes: padding cbox's ~40 triangles to 128 made every
-# dense trace process 3x the columns, and the measured cost was ~25x (XLA's
-# fused matmul+resolve tiles far better at ~120 than 384 minor columns) —
-# 2.72 ms -> 0.11 ms per 262k-ray trace. Renders are bitwise identical
-# across pad sizes; trace cost tracks the padded count nearly linearly, so
-# pad to the finest quantum that keeps the one-hot gathers sublane-aligned.
+from ..utils import pytree
+
+# Triangle-count padding quantum. Dense trace cost tracks the padded count,
+# and renders are bitwise identical across pad sizes, so pad finely. Not yet
+# tuned on the H100.
 TRI_PAD = 8
 
-# above this triangle count the flat dense scan loses to the two-level
-# clustered intersector (measured crossover ~1k on v5e; see accel/clustered.py)
-CLUSTER_THRESHOLD = 1024
+# above this triangle count intersection leaves the dense scan for the BVH
+# walk (accel/bvh.py). On an H100 (700 W limit), path 256^2 8 spp depth 5
+# on sphere grids: dense wins at 898 triangles (81 vs 118 ms), the walk at
+# 1442 (183 vs 217 ms); the crossover lies between.
+BVH_THRESHOLD = 1024
 
 # Fused per-triangle attribute row (GeometryTables.attr): every per-tri
 # quantity the hot paths read, in ONE f32 table, so a wavefront hit fetch is
@@ -128,11 +127,11 @@ class TriMesh:
         self.normals = n / np.maximum(norm, 1e-20)
 
 
-@struct.dataclass
+@pytree.dataclass
 class GeometryTables:
     """Flat per-triangle SoA (padded to TRI_PAD). Pad rows are degenerate."""
-    n_tris: int = struct.field(pytree_node=False)       # real triangle count
-    n_pad: int = struct.field(pytree_node=False)        # padded count T
+    n_tris: int = pytree.field(static=True)       # real triangle count
+    n_pad: int = pytree.field(static=True)        # padded count T
     v0: Any          # [T, 3]
     e1: Any          # [T, 3]
     e2: Any          # [T, 3]
@@ -148,14 +147,9 @@ class GeometryTables:
     # fused attribute rows (see A_* column constants above): [T, N_ATTR_GEOM]
     # as built here, widened to [T, N_ATTR] by Scene.compile
     attr: Any = None
-    # two-level clustered intersector tables for large scenes
-    # (accel/clustered.py), attached by build_geometry_tables when the
-    # triangle count crosses CLUSTER_THRESHOLD; None = flat dense path
-    clusters: Any = None
-    # Pallas tile-walk tables (accel/pallas_walk.py): the TPU production
-    # path for large scenes (7-15x the XLA clustered path); built alongside
-    # clusters while the tables fit VMEM, used when the backend is TPU
-    walk: Any = None
+    # BVH tables (accel/bvh.py BvhTables), attached by build_geometry_tables
+    # when the triangle count crosses BVH_THRESHOLD; None = dense scan
+    bvh: Any = None
 
 
 def _baldwin_weber_rows(v0, e1, e2, n):
@@ -254,27 +248,9 @@ def build_geometry_tables(meshes: List[TriMesh], mesh_emitter_id: List[int]) -> 
         gt.mat_id[:, None].astype(np.float32),
         gt.emitter_id[:, None].astype(np.float32),
     ], axis=1).astype(np.float32, copy=False))
-    if gt.n_tris > CLUSTER_THRESHOLD:
+    if gt.n_tris > BVH_THRESHOLD:
         from ..accel.bvh import build_bvh
-        from ..accel.clustered import build_clusters
-        import os
-        _builder = os.environ.get("RUSTLIGHT_TPU_BVH_BUILDER", "binned")
-        bvh = build_bvh(gt, max_leaf=8, builder=_builder)  # ONE build, shared
-        gt = gt.replace(clusters=build_clusters(gt, bvh=bvh))
-        from ..accel.pallas_walk import (K, _MAX_CLUSTERS, build_walk_tables)
-        if (gt.n_tris + K - 1) // K <= _MAX_CLUSTERS:
-            # necessary precheck only: treelet packing can still overflow
-            # the wide-mode cluster ceiling (fill >= 50%, so the true
-            # ceiling is ~8-16M triangles depending on geometry)
-            wt = build_walk_tables(gt, bvh=bvh)   # None past the ceiling
-            if wt is not None:
-                gt = gt.replace(walk=wt)
-        if gt.walk is None:
-            import logging
-            logging.getLogger(__name__).warning(
-                "scene exceeds the Pallas walk cluster ceiling (%d tris); "
-                "TPU renders fall back to the much slower XLA clustered "
-                "intersector", gt.n_tris)
+        gt = gt.replace(bvh=build_bvh(gt))
     return gt
 
 

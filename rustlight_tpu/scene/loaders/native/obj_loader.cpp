@@ -1,7 +1,7 @@
 // Native Wavefront OBJ parser.
 //
 // The reference loads OBJ through the native tobj crate (src/geometry.rs:
-// 13-97); this is the C++ equivalent for the TPU framework's data-loading
+// 13-97); this is the C++ equivalent for this framework's data-loading
 // path — the Python line parser is ~50x slower on multi-MB meshes. Exposed
 // through ctypes with a parse/counts/fill/free handle API; triangulates
 // polygon faces as fans, resolves 1-based and negative indices, and records

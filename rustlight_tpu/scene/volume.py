@@ -11,8 +11,8 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import jax.numpy as jnp
-from flax import struct
 
+from ..utils import pytree
 from ..utils import warps
 from ..utils.frame import make_frame, to_world
 
@@ -22,7 +22,7 @@ PHASE_ISOTROPIC = 0
 PHASE_HG = 1
 
 
-@struct.dataclass
+@pytree.dataclass
 class HomogeneousVolume:
     sigma_a: Any   # [3]
     sigma_s: Any   # [3]

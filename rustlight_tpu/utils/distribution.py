@@ -13,12 +13,12 @@ from __future__ import annotations
 from typing import Any
 
 import jax.numpy as jnp
-from flax import struct
 
+from . import pytree
 from ..ops.gather import table_take
 
 
-@struct.dataclass
+@pytree.dataclass
 class Distribution1D:
     cdf: Any   # [n+1] f32
     func: Any  # [n] f32
@@ -84,7 +84,7 @@ def sample_continuous_1d(dist: Distribution1D, u):
     return idx.astype(jnp.float32) + dv, idx, dv
 
 
-@struct.dataclass
+@pytree.dataclass
 class Distribution2D:
     """Marginal over rows x conditional over columns (reference src/math.rs:489-532)."""
     marginal_cdf: Any      # [h+1]

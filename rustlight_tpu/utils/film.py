@@ -1,6 +1,6 @@
 """Film plane / AOV buffers.
 
-TPU-native `BufferCollection` (reference src/integrators/mod.rs:48-216): the
+Wavefront `BufferCollection` (reference src/integrators/mod.rs:48-216): the
 film is a dict of dense [h, w, c] arrays. The reference's 16x16 block machinery
 disappears — a wavefront splats into the whole film with one scatter-add, and
 multi-device films merge with a single `psum`/`all_reduce`.
@@ -56,7 +56,7 @@ def splat_add(film_img, pixel_ids, values, *, width: int):
     """Scatter-add lane contributions into a [h, w, c] device film.
 
     pixel_ids [n] int32 linear ids (y*width + x); values [n, c]. Duplicate ids
-    accumulate (the TPU replacement for the reference's mutex-merged blocks,
+    accumulate (the wavefront replacement for the reference's mutex-merged blocks,
     P2/P6 in SURVEY.md §2.10).
     """
     h, w, c = film_img.shape

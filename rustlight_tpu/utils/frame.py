@@ -2,7 +2,7 @@
 
 Vectorized equivalent of the reference's `Frame` (src/math.rs:356-384):
 given a unit normal n build tangent/bitangent without branches so the whole
-wavefront computes frames in lockstep on the VPU.
+wavefront computes frames in lockstep across lanes.
 """
 from __future__ import annotations
 

@@ -61,17 +61,9 @@ def _load_native():
     src = _NATIVE_DIR / "piz_codec.cpp"
     try:
         if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
-            try:
-                subprocess.run(
-                    ["g++", "-O2", "-shared", "-fPIC", "-o", str(so),
-                     str(src)],
-                    check=True, capture_output=True)
-            except Exception:
-                # no compiler but a prebuilt .so exists (checkout mtimes
-                # are arbitrary): a possibly-stale native codec beats the
-                # bit-serial Python fallback by orders of magnitude
-                if not so.exists():
-                    raise
+            subprocess.run(
+                ["g++", "-O2", "-shared", "-fPIC", "-o", str(so), str(src)],
+                check=True, capture_output=True)
         lib = ctypes.CDLL(str(so))
         lib.rl_piz_compress.restype = ctypes.c_longlong
         lib.rl_piz_compress.argtypes = [

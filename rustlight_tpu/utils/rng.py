@@ -1,7 +1,7 @@
 """Counter-based RNG streams for wavefront rendering.
 
 Replaces the reference's per-thread `SmallRng` sampler clones
-(src/samplers/independent.rs) with a TPU-native scheme: a *scalar* threefry key
+(src/samplers/independent.rs) with a wavefront scheme: a *scalar* threefry key
 plus a dimension counter. Each `next` call derives key ⊕ counter and generates
 one uniform per wavefront lane in a single vectorized draw — no per-lane key
 storage, deterministic for a given seed, and trivially jit/shard_map friendly.
@@ -12,20 +12,22 @@ from typing import Any, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from . import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class RngStream:
     key: Any      # raw uint32[2] threefry key
     counter: Any  # scalar int32 dimension counter
 
 
 def make_stream(seed_or_key) -> RngStream:
-    """Default threefry keeps renders bit-reproducible across backends (CPU
-    == TPU, verified by the regression refs). JAX_DEFAULT_PRNG_IMPL=rbg
-    swaps in the TPU-native RngBitGenerator for every stream (~4% faster
-    cbox headline; bits are implementation-defined, so refs won't match)."""
+    """Default threefry draws the same bits on every backend, so renders
+    are reproducible across them up to float rounding.
+    JAX_DEFAULT_PRNG_IMPL=rbg swaps in XLA's RngBitGenerator for every
+    stream (bits are implementation-defined, so refs won't match; its speed
+    on the H100 is not measured)."""
     if isinstance(seed_or_key, int):
         key = jax.random.PRNGKey(seed_or_key)
     else:
@@ -54,11 +56,11 @@ def stream_fold(stream: RngStream, data) -> RngStream:
     return RngStream(key=jax.random.fold_in(stream.key, data), counter=jnp.int32(0))
 
 
-@struct.dataclass
+@pytree.dataclass
 class ArrayStream:
     """Primary-sample-space stream: dimensions read from an explicit array.
 
-    The TPU-native replacement for the reference's lazily-mutated replay
+    The wavefront replacement for the reference's lazily-mutated replay
     sampler (src/samplers/mcmc.rs:69-221): every MCMC chain keeps a dense
     [n_dims] vector of primary samples; all chains advance in lockstep and a
     `stream_next` reads one column. Reading past n_dims wraps with a decorrelating
@@ -89,7 +91,7 @@ def astream_next2d(stream: ArrayStream, shape=()):
     return u, stream.replace(counter=stream.counter + 2)
 
 
-@struct.dataclass
+@pytree.dataclass
 class StratifiedStream:
     """Wraps a base stream so the first NB_DIM 1D draws and first NB_DIM 2D
     draws are stratified over the sample-pass axis (reference
@@ -101,7 +103,7 @@ class StratifiedStream:
     inner: Any
     pixel_ids: Any  # [n] int32
     pass_idx: Any   # scalar
-    spp: int = struct.field(pytree_node=False)
+    spp: int = pytree.field(static=True)
     # PASS-INDEPENDENT key for the stratum permutations: inner.key is folded
     # per pass, so keying the permutation off it would redraw the (a, b)
     # permutation every pass and void the coverage guarantee

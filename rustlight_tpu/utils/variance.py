@@ -1,7 +1,7 @@
 """Welford online mean/variance estimator.
 
 Reference: src/structure.rs:1062-1088 (`VarianceEstimator::add` incremental
-update; `variance()` = M2/(n-1)). TPU-native form: the state is a pytree of
+update; `variance()` = M2/(n-1)). Wavefront form: the state is a pytree of
 arrays so whole images of estimators update in one vectorized `add`, usable
 both with numpy (host accumulation) and jax arrays (in-jit accumulation).
 """

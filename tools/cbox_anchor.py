@@ -44,11 +44,6 @@ def main():
     ap.add_argument("--png", default="/root/reference/data/rustlight/cbox.png")
     args = ap.parse_args()
 
-    from rustlight_tpu.cli import (_enable_compile_cache,
-                                   _respect_platform_env)
-    _respect_platform_env()
-    _enable_compile_cache()
-
     from PIL import Image
     ref = np.asarray(Image.open(args.png)).astype(np.float32)[..., :3] / 255.0
 

@@ -28,9 +28,6 @@ def main():
                     help="optional directory for the rendered PFMs")
     args = ap.parse_args()
 
-    from rustlight_tpu.cli import _respect_platform_env, _enable_compile_cache
-    _respect_platform_env()
-    _enable_compile_cache()
     from rustlight_tpu.scene.loaders import load_scene
     from rustlight_tpu.scene import resize_camera
     from rustlight_tpu.integrators import IntegratorPathTracing, render
